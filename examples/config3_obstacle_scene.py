@@ -12,9 +12,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    import jax
-    jax.config.update("jax_platforms", "cpu")  # closed loop is host-paced
-    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
@@ -31,7 +28,7 @@ def main():
             DEFAULT_CONFIG.search, expand_width=8, node_capacity=4096, max_rounds=48
         ),
     )
-    planner = ResilientPlanner(C, max_cloud=2048, dtype=jnp.float64)
+    planner = ResilientPlanner(C, max_cloud=2048, dtype=jnp.float32)
     x0 = np.zeros(9); x0[2] = 1.2
     sim = QuadSim(C.model, x0.copy(), np.zeros(3))
     planner.on_odometry(x0)

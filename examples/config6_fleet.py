@@ -5,8 +5,9 @@ stack — batched kinodynamic search, the kernelized nmpc_step, device-side
 plant, per-lane fail ladders — on one chip.  The Monte-Carlo shape the
 reference's one-robot 20 Hz loop cannot express.
 
-CPU-friendly defaults; on a TPU run tools/fleet_probe.py for the
-benchmarked configuration (B=128).
+Runs on JAX's default device at f32 (set JAX_PLATFORMS=cpu to run on
+the CPU); tools/fleet_probe.py runs the benchmarked configuration
+(B=128).
 """
 import sys
 from pathlib import Path
@@ -18,11 +19,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 
 
 def main(B=8, duration=5.0):
-    import jax
-
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     import fleet_probe as fp
@@ -30,18 +26,9 @@ def main(B=8, duration=5.0):
     from forces_resilient_planner_tpu.engine import fleet
 
     cfg = fp.fleet_cfg()
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = jnp.float32
     grid, obs, mask = fp.fleet_scene(cfg, dtype)
-
-    rng = np.random.default_rng(5)
-    starts = np.zeros((B, 9))
-    starts[:, 0] = -0.5
-    starts[:, 1] = rng.uniform(0.8, 1.6, B)
-    starts[:, 2] = 1.2
-    goals = np.stack(
-        [np.full(B, 3.2), rng.uniform(0.9, 1.5, B), np.full(B, 1.2)], -1
-    )
-    f_true = rng.uniform(-0.5, 0.5, (B, 3))
+    starts, goals, f_true = fp.fleet_lanes(B)
 
     res = fleet.run_fleet(
         cfg, grid, jnp.asarray(obs, dtype), mask, starts, goals, f_true,

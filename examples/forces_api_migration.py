@@ -1,11 +1,12 @@
-"""Migration example: driving the TPU solver through the FORCES Pro surface.
+"""Migration example: driving the batched solver through the FORCES Pro surface.
 
 A user of the reference talks to the generated solver via flat structs
 (xinit / x0 / all_parameters) packed by FORCESNormal::solveNormal
 (forces_normal.cpp:55-140).  This example packs the exact same layout and
-solves with the TPU-native IPM — the drop-in path for existing code.
+solves with this repo's IPM — the drop-in path for existing code.
 
-Run: python examples/forces_api_migration.py
+Run: python examples/forces_api_migration.py         (default device, f32)
+     python examples/forces_api_migration.py --cpu   (CPU, f64)
 """
 import sys
 from pathlib import Path
@@ -14,11 +15,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-# the FORCES interface is an f64 host surface; run it on CPU like the
-# reference's ctypes interface would (pass --tpu to use the chip at f32)
-if "--tpu" not in sys.argv:
+# --cpu: the FORCES interface as an f64 host surface, like the
+# reference's ctypes interface
+if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 import jax.numpy as jnp

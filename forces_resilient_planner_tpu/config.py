@@ -1,4 +1,4 @@
-"""Typed configuration tree for the TPU-native resilient planner.
+"""Typed configuration tree for the batched resilient planner.
 
 Every constant that is hard-coded or ROS-parameterized in the reference
 (ZJU-FAST-Lab/forces_resilient_planner) becomes a named field here.
@@ -103,7 +103,6 @@ class SolverConfig:
     # convergence TAIL heavier (max iters 21 -> 28-36 over 4096 lanes) and
     # the lockstep while_loop pays the max, so the monotone Fiacco-McCormick
     # schedule (False: one backsolve per iteration) is the batched default.
-    # Measured on TPU v5e B=4096: 37.2k solves/s monotone vs 22-25k PC.
     predictor_corrector: bool = False
     sigma_min: float = 0.0            # centering floor for the PC path
     mu_gate: bool = True              # gate barrier shrink on err<=gate*mu
@@ -179,7 +178,8 @@ class CorridorConfig:
     # then sit strictly INSIDE the compacted polytope (measured ~7 cm in
     # tests/test_corridor.py::test_obstacle_compaction_overflow_unsound) —
     # only enable on workloads where the in-bbox count is known to fit.
-    # The production batched path (ops/corridor_pallas.py) never compacts.
+    # The corridor kernel (ops/corridor_pallas.py) never compacts; with
+    # compaction on, the batched pipeline keeps the XLA path.
     max_active_obstacles: int = 0
 
 
@@ -211,7 +211,7 @@ class SearchConfig:
     # ancillary feedback loop — see engine/fleet.py — so the default
     # stays at the reference value.)
     clearance_inflate: float = 1.5
-    expand_width: int = 32            # frontier nodes expanded per round (TPU batching)
+    expand_width: int = 32            # frontier nodes expanded per round (batching)
     max_rounds: int = 256             # bounded best-first rounds
     node_capacity: int = 8192         # fixed node-table size
     init_sub_durations: int = 8       # first-expansion sub-durations (time_res_init=1/8)

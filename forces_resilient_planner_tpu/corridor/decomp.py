@@ -1,4 +1,4 @@
-"""Safe-flight-corridor generation: ellipsoid decomposition, TPU-shaped.
+"""Safe-flight-corridor generation: ellipsoid decomposition, array-shaped.
 
 Re-expression of DecompROS' line-segment decomposition
 (decomp_util/line_segment.h:134-211, decomp_util/decomp_base.h:63-83,
@@ -36,6 +36,16 @@ _PREC = jax.lax.Precision.HIGHEST
 _BIG = 1e30
 
 
+def _mm(a, b):
+    """True-f32 (or f64) matrix product: no TF32 on tensor cores."""
+    return jnp.matmul(a, b, precision=_PREC)
+
+
+def _ellipsoid_C(Rf, axes):
+    """C = Rf diag(axes) Rf^T."""
+    return _mm(Rf * axes[None, :], Rf.T)
+
+
 def seed_rotation(p1: jnp.ndarray, p2: jnp.ndarray) -> jnp.ndarray:
     """Line-aligned frame with zero roll (geometric_utils.h:27-35)."""
     v = p2 - p1
@@ -53,8 +63,8 @@ class Ellipsoid(NamedTuple):
 def inv3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 inverse (adjugate / det).
 
-    TPU note: jnp.linalg.inv lowers to pivoted LU — a large HLO that blows
-    up compile time when it appears inside scan bodies (the decomposition
+    jnp.linalg.inv lowers to pivoted LU — a large HLO that blows up
+    compile time when it appears inside scan bodies (the decomposition
     loops call it every iteration).  The adjugate form is ~30 elementwise
     ops and keeps compiles fast.
     """
@@ -126,19 +136,19 @@ def find_ellipsoid(
     def phase1(carry, _):
         axes, Rf, inside = carry
         E = Ellipsoid(
-            C=Rf @ jnp.diag(jnp.array([axes[0], axes[1], axes[1]], dtype)) @ Rf.T,
+            C=_ellipsoid_C(Rf, jnp.stack([axes[0], axes[1], axes[1]])),
             d=d,
         )
         dists = ellipsoid_dist(E, obs)
         any_inside = jnp.any(inside)
         idx, _ = _closest_masked(dists, inside)
         pw = obs[idx]
-        p_loc = Ri.T @ (pw - d)
+        p_loc = _mm(Ri.T, pw - d)
         roll = jnp.arctan2(p_loc[2], p_loc[1])
         cr, sr = jnp.cos(roll), jnp.sin(roll)
         Rx = jnp.array([[1.0, 0, 0], [0, cr, -sr], [0, sr, cr]], dtype)
-        Rf_new = Ri @ Rx
-        p_r = Rf_new.T @ (pw - d)
+        Rf_new = _mm(Ri, Rx)
+        p_r = _mm(Rf_new.T, pw - d)
         denom = 1.0 - (p_r[0] / axes[0]) ** 2
         b_new = jnp.where(
             (p_r[0] < axes[0]) & (denom > 1e-12),
@@ -149,9 +159,8 @@ def find_ellipsoid(
         Rf_out = jnp.where(any_inside, Rf_new, Rf)
         axes_out = jnp.where(any_inside, axes_new, axes)
         E_new = Ellipsoid(
-            C=Rf_out
-            @ jnp.diag(jnp.array([axes_out[0], axes_out[1], axes_out[1]], dtype))
-            @ Rf_out.T,
+            C=_ellipsoid_C(
+                Rf_out, jnp.stack([axes_out[0], axes_out[1], axes_out[1]])),
             d=d,
         )
         new_dists = ellipsoid_dist(E_new, obs)
@@ -166,24 +175,24 @@ def find_ellipsoid(
     # ---- phase 2: shrink vertical axis (c), frame fixed ------------------
     # reset with old axes[2] (= f) and re-filter from the *initial* inside set
     axes2_init = jnp.array([axes1[0], axes1[1], f], dtype)
-    E2 = Ellipsoid(C=Rf @ jnp.diag(axes2_init) @ Rf.T, d=d)
+    E2 = Ellipsoid(C=_ellipsoid_C(Rf, axes2_init), d=d)
     inside2 = obs_mask & (ellipsoid_dist(E2, obs) <= 1.0) & (dist0 <= 1.0)
 
     def phase2(carry, _):
         axes, inside = carry
-        E = Ellipsoid(C=Rf @ jnp.diag(axes) @ Rf.T, d=d)
+        E = Ellipsoid(C=_ellipsoid_C(Rf, axes), d=d)
         dists = ellipsoid_dist(E, obs)
         any_inside = jnp.any(inside)
         idx, _ = _closest_masked(dists, inside)
         pw = obs[idx]
-        p_r = Rf.T @ (pw - d)
+        p_r = _mm(Rf.T, pw - d)
         dd = 1.0 - (p_r[0] / axes[0]) ** 2 - (p_r[1] / axes[1]) ** 2
         c_new = jnp.where(
             dd > eps, jnp.abs(p_r[2]) / jnp.sqrt(jnp.maximum(dd, 1e-12)), axes[2]
         )
         axes_new = axes.at[2].set(c_new)
         axes_out = jnp.where(any_inside, axes_new, axes)
-        E_new = Ellipsoid(C=Rf @ jnp.diag(axes_out) @ Rf.T, d=d)
+        E_new = Ellipsoid(C=_ellipsoid_C(Rf, axes_out), d=d)
         inside_new = inside & (1.0 - ellipsoid_dist(E_new, obs) > eps)
         inside_out = jnp.where(any_inside, inside_new, inside)
         return (axes_out, inside_out), None
@@ -191,7 +200,7 @@ def find_ellipsoid(
     (axes_f, _), _ = jax.lax.scan(
         phase2, (axes2_init, inside2), None, length=cfg.shrink_iters
     )
-    return Ellipsoid(C=Rf @ jnp.diag(axes_f) @ Rf.T, d=d)
+    return Ellipsoid(C=_ellipsoid_C(Rf, axes_f), d=d)
 
 
 class PlaneSet(NamedTuple):
@@ -212,14 +221,14 @@ def find_polyhedron(
     """
     dtype = obs.dtype
     Cinv = inv3(E.C)
-    M = Cinv @ Cinv.T
+    M = _mm(Cinv, Cinv.T)
 
     def round_fn(remain, _):
         any_left = jnp.any(remain)
         dists = ellipsoid_dist(E, obs)
         idx, _ = _closest_masked(dists, remain)
         pw = obs[idx]
-        n = M @ (pw - E.d)
+        n = _mm(M, pw - E.d)
         n = n / jnp.maximum(jnp.linalg.norm(n), 1e-12)
         sd = jnp.einsum("j,nj->n", n, obs - pw[None], precision=_PREC)
         remain_new = remain & (sd < 0)

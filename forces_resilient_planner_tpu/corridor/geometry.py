@@ -1,7 +1,7 @@
 """Corridor geometry utilities: rotations, hyperplane queries, polyhedron
 vertex/face enumeration.
 
-TPU-native analog of the reference's header-only geometry layer
+Batched analog of the reference's header-only geometry layer
 (DecompROS decomp_geometry/geometric_utils.h, ellipsoid.h, polyhedron.h).
 These are host-side tools feeding visualization and analysis (the reference
 uses them in the rviz plugins and `cal_vertices`,

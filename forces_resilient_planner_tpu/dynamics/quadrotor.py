@@ -1,6 +1,6 @@
 """9-state quadrotor dynamics with external force and rotor drag.
 
-TPU-native transcription of the reference model:
+Array transcription of the reference model:
   - continuous dynamics: matlab_code/dynamics/nonlinear_dynamics.m:20-40
   - discretization:      matlab_code/dynamics/transit.m (FORCES RK2 = Heun's
     method, verified against the generated CasADi code
@@ -11,7 +11,7 @@ TPU-native transcription of the reference model:
 State  x = [px py pz vx vy vz roll pitch yaw]
 Input  u = [wx wy wz thrust]   (commanded body rates + collective thrust force)
 
-All functions are pure, jit/vmap-friendly, and written for f32 TPU compute
+All functions are pure, jit/vmap-friendly, and written for f32 accelerator compute
 (f64-capable when jax_enable_x64 is on, used by the CPU oracle).
 """
 from __future__ import annotations
@@ -22,6 +22,8 @@ import jax
 import jax.numpy as jnp
 
 from forces_resilient_planner_tpu.config import ModelConfig
+
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def euler_to_rot(rpy: jnp.ndarray) -> jnp.ndarray:
@@ -65,8 +67,9 @@ def continuous_dynamics(
     thrust = u[..., 3]
     drag = jnp.asarray([cfg.drag_coeff, cfg.drag_coeff, 0.0], dtype=x.dtype)
     # drag_acc = R diag(d) R^T v
-    v_body = jnp.einsum("...ji,...j->...i", R, vel)
-    drag_acc = jnp.einsum("...ij,...j->...i", R, drag * v_body)
+    v_body = jnp.einsum("...ji,...j->...i", R, vel, precision=_PREC)
+    drag_acc = jnp.einsum("...ij,...j->...i", R, drag * v_body,
+                          precision=_PREC)
     g_vec = jnp.zeros_like(vel).at[..., 2].set(cfg.g)
     acc = z_b * (thrust[..., None] / cfg.mass) + f_ext - g_vec - drag_acc
     euler_dot = u[..., 0:3]

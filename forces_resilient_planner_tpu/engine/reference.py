@@ -66,8 +66,8 @@ def sample_references(
         return y, y
 
     # unroll=N: the 20-step LPF as a rolled scan lowers to 20 sequential
-    # tiny kernels whose launch overhead dominated the batched refs phase
-    # on TPU; unrolled it fuses into the surrounding program
+    # tiny kernels whose launch overhead dominated the batched refs phase;
+    # unrolled it fuses into the surrounding program
     _, ref_yaw = jax.lax.scan(
         yaw_step, last_yaw, (ref_pos, fwd_pos), unroll=N
     )

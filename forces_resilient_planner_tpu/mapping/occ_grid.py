@@ -1,6 +1,6 @@
 """Occupancy mapping: log-odds voxel grid + batched raycasting.
 
-TPU-native equivalent of occ_grid/src/occ_map.cpp + raycast.cpp:
+Array equivalent of occ_grid/src/occ_map.cpp + raycast.cpp:
   - dense log-odds buffer, linear layout x*ny*nz + y*nz + z
     (occ_map.cpp:92,105), init clamp_min_log (occ_map.cpp:831)
   - voxel state: -1 outside map, 0 outside local window or free,
@@ -30,6 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from forces_resilient_planner_tpu.config import MapConfig
+
+_PREC = jax.lax.Precision.HIGHEST
 
 
 class OccGrid(NamedTuple):
@@ -153,7 +155,7 @@ def project_depth(
     x = (uu.astype(d.dtype) - cx) * d_eff / fx
     y = (vv.astype(d.dtype) - cy) * d_eff / fy
     pc = jnp.stack([x, y, d_eff], axis=-1).reshape(-1, 3)
-    pw = pc @ R_wc.T + t_wc[None]
+    pw = jnp.matmul(pc, R_wc.T, precision=_PREC) + t_wc[None]
     return pw, valid.reshape(-1)
 
 
@@ -334,7 +336,8 @@ def project_depth_shift_filter(
     pw, valid = project_depth(depth, R_wc, t_wc, cfg, fx, fy, cx, cy)
     # reproject into the last camera frame
     rel = pw - last_t_wc[None]
-    pc = jnp.einsum("ji,nj->ni", last_R_wc, rel)   # R^T (p - t)
+    pc = jnp.einsum("ji,nj->ni", last_R_wc, rel,
+                    precision=_PREC)                  # R^T (p - t)
     z = pc[:, 2]
     safe_z = jnp.where(jnp.abs(z) < 1e-6, 1e-6, z)
     uu = pc[:, 0] * fx / safe_z + cx

@@ -1,11 +1,11 @@
-"""Fixed-structure batched matrix exponential for TPU.
+"""Fixed-structure batched matrix exponential.
 
 jax.scipy.linalg.expm dispatches between five Pade orders with lax.switch;
 under vmap the batched predicate makes XLA evaluate EVERY branch and
 select, and the per-matrix 1-norm scaling adds more data-dependent control
 flow.  The tube propagator (tube/lyapunov.py) evaluates tens of thousands
 of 9x9/18x18 exponentials per batched pipeline step, so this module
-provides the TPU-shaped variant: ONE Pade-13 evaluation with a masked
+provides a straight-line variant: ONE Pade-13 evaluation with a masked
 fixed-count squaring chain — straight-line code, fully batched, identical
 math to the scipy/jax algorithm whenever the scaling bound holds.
 

@@ -1,13 +1,12 @@
-"""Multi-chip / multi-host scale-out via jax.sharding.
+"""Multi-device / multi-host scale-out via jax.sharding.
 
-The reference is a single-process planner; scale-out is a new, TPU-native
-capability (SURVEY.md section 2.4): scenario batches are sharded over a
-(host, chip) mesh, the per-scenario solves are embarrassingly parallel, and
-sweep statistics reduce across the mesh with XLA collectives over ICI/DCN.
+The reference is a single-process planner; scale-out is a new capability
+(SURVEY.md section 2.4): scenario batches are sharded over a device mesh,
+the per-scenario solves are embarrassingly parallel, and sweep statistics
+reduce across the mesh with XLA collectives (NCCL on NVIDIA cards).
 
-On a real pod slice, initialize with jax.distributed.initialize() first;
-for CI this is exercised on a virtual CPU mesh
-(--xla_force_host_platform_device_count).
+Multi-process runs call jax.distributed.initialize() first; CI exercises
+the mesh on virtual CPU devices (--xla_force_host_platform_device_count).
 """
 from __future__ import annotations
 
@@ -25,26 +24,21 @@ from forces_resilient_planner_tpu.solver import ipm
 
 
 def make_mesh(devices=None, shape: Sequence[int] | None = None,
-              axis_names: Sequence[str] = ("host", "chip")) -> Mesh:
+              axis_names: Sequence[str] | None = None) -> Mesh:
     """Mesh over the available devices.
 
-    Default shape: (num_hosts_like, chips_per_host) folded from the flat
-    device list; for a single axis pass axis_names=('batch',).
+    Default: one 'batch' axis over every device — the cards of one host
+    reach each other all to all, so the mesh follows the algorithm (one
+    scenario axis).  An explicit 2-D shape gets ('host', 'chip') axes, the
+    outer one spanning process boundaries (tests/test_multiprocess.py).
     """
     devices = devices if devices is not None else jax.devices()
-    n = len(devices)
     if shape is None:
-        if len(axis_names) == 1:
-            shape = (n,)
-        else:
-            # fold into 2 axes: as square as possible
-            best = 1
-            for d in range(1, int(np.sqrt(n)) + 1):
-                if n % d == 0:
-                    best = d
-            shape = (best, n // best)
+        shape = (len(devices),)
+    if axis_names is None:
+        axis_names = ("batch",) if len(shape) == 1 else ("host", "chip")
     dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, axis_names)
+    return Mesh(dev_array, tuple(axis_names))
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
@@ -78,11 +72,11 @@ def shard_scenarios(scen: batch_mod.ScenarioSet, mesh: Mesh) -> batch_mod.Scenar
 def make_sharded_solver(cfg: PlannerConfig, mesh: Mesh):
     """jit-compiled sharded batched solve + collective sweep stats.
 
-    Each shard runs the lane-major (Pallas on TPU) tiered solver on its
-    LOCAL scenario slice via shard_map — the per-device program is exactly
-    the single-chip throughput path, tier compaction included (device-
-    local, so no cross-device gathers); only the sweep statistics
-    cross the mesh, as XLA collectives over ICI/DCN.
+    Each shard runs the lane-major tiered solver on its LOCAL scenario
+    slice via shard_map — the per-device program is exactly the
+    single-card throughput path, tier compaction included (device-local,
+    so no cross-device gathers); only the sweep statistics cross the
+    mesh, as XLA collectives.
 
     Returns fn(scen) -> (SolveResult sharded, SweepStats replicated).
     """
@@ -128,6 +122,19 @@ _RESULT_TREE = ipm.SolveResult(
 )
 
 
+def sweep_scenarios(
+    cfg: PlannerConfig, n_goals: int, n_forces: int, n_corridors: int = 1,
+    seed: int = 0, dtype=jnp.float32,
+) -> batch_mod.ScenarioSet:
+    """The config-5 sweep's scenario grid (goal x force x corridor),
+    deterministic per seed."""
+    rng = np.random.default_rng(seed)
+    goals = rng.uniform([-4, -4, 1.0], [4, 4, 1.6], (n_goals, 3))
+    forces = rng.uniform(-2.0, 2.0, (n_forces, 3))
+    halves = np.tile(np.array([[6.0, 6.0, 2.0]]), (n_corridors, 1))
+    return batch_mod.make_scenarios(cfg, goals, forces, halves, dtype=dtype)
+
+
 def monte_carlo_sweep(
     cfg: PlannerConfig, mesh: Mesh, n_goals: int, n_forces: int,
     n_corridors: int = 1, seed: int = 0, dtype=jnp.float32,
@@ -136,11 +143,7 @@ def monte_carlo_sweep(
 
     Scenario count is rounded up to a multiple of the mesh size.
     """
-    rng = np.random.default_rng(seed)
-    goals = rng.uniform([-4, -4, 1.0], [4, 4, 1.6], (n_goals, 3))
-    forces = rng.uniform(-2.0, 2.0, (n_forces, 3))
-    halves = np.tile(np.array([[6.0, 6.0, 2.0]]), (n_corridors, 1))
-    scen = batch_mod.make_scenarios(cfg, goals, forces, halves, dtype=dtype)
+    scen = sweep_scenarios(cfg, n_goals, n_forces, n_corridors, seed, dtype)
     B = scen.batch
     n_dev = mesh.devices.size
     pad = (-B) % n_dev

@@ -1,4 +1,4 @@
-"""Kinodynamic front-end search, TPU-shaped.
+"""Kinodynamic front-end search, batch-shaped.
 
 Re-design of path_searching/src/kinodynamic_astar.cpp (priority-queue
 best-first search over a double-integrator lattice) as a bounded-round
@@ -9,7 +9,7 @@ batched frontier expansion with fixed-size tables:
     O(1) gather/scatter.
   - each round expands the top-K open nodes by f-score simultaneously
     (K = SearchConfig.expand_width); K=1 reproduces the reference's strict
-    best-first order, larger K trades node-order parity for TPU
+    best-first order, larger K trades node-order parity for batched
     throughput (path feasibility/quality is preserved, SURVEY.md section 7).
   - the disturbance bias is kept: every input sample has external_acc
     added in the state transition (stateTransit, kinodynamic_astar.cpp:
@@ -34,6 +34,8 @@ import numpy as np
 
 from forces_resilient_planner_tpu.config import MapConfig, SearchConfig, TubeConfig
 from forces_resilient_planner_tpu.mapping import occ_grid as og
+
+_PREC = jax.lax.Precision.HIGHEST
 
 REACH_HORIZON = 1
 REACH_END = 2
@@ -180,8 +182,8 @@ def compute_shot(
     ts = (jnp.arange(1, 11, dtype=state1.dtype) / 10.0) * td  # t_delta = td/10
     tp = jnp.stack([jnp.ones_like(ts), ts, ts**2, ts**3], axis=-1)     # (10,4)
     tv = jnp.stack([jnp.zeros_like(ts), jnp.ones_like(ts), 2 * ts, 3 * ts**2], -1)
-    pos = tp @ coef.T   # (10, 3)
-    vel = tv @ coef.T
+    pos = jnp.matmul(tp, coef.T, precision=_PREC)   # (10, 3)
+    vel = jnp.matmul(tv, coef.T, precision=_PREC)
     half = jnp.asarray(
         [mcfg.size[0] / 2, mcfg.size[1] / 2, mcfg.size[2] / 2], state1.dtype
     )

@@ -22,7 +22,7 @@ BADFUNCEVAL/NOPROGRESS, see EXIT_NAMES below), and the C++ wrappers
     [100:130] tube-tightened offsets b - ||E a^T||  (index.p.polyConstb,
              tightening done by the wrapper, forces_normal.cpp:111-136)
 
-This module reproduces that exact surface on top of the TPU-native IPM so a
+This module reproduces that exact surface on top of this repo's batched IPM so a
 user of the reference can migrate by swapping the import: pack the same
 flat arrays, get the same output names, exit flags (1 optimal / 0 maxit,
 FORCESNLPsolver_normal.h:110-127) and info fields.
@@ -88,7 +88,7 @@ class ForcesParams:
         default_factory=lambda: np.zeros(NPAR_TOTAL)
     )
     num_of_threads: int = 1   # accepted for layout parity; ignored (the
-    #                           batch dimension is the TPU's parallelism)
+    #                           batch dimension is the device's parallelism)
 
 
 @dataclasses.dataclass

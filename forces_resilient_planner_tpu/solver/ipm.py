@@ -12,10 +12,10 @@ mpc_generator_normal.m:51-79).  Fixed-point-free jit semantics: a bounded
 while_loop with convergence masking; exit code 1 = optimal, 0 = max-iter
 (FORCESNLPsolver_normal.h:110-139).
 
-Design notes (TPU):
+Design notes:
   - every array op is stage-batched (N=20 leading axis) and vmap-able over
     scenarios; the only sequential dependency is the N-step Riccati scan.
-  - f32 on TPU with HIGHEST matmul precision; f64 under jax_enable_x64 for
+  - f32 on the accelerator with HIGHEST matmul precision; f64 under jax_enable_x64 for
     the CPU oracle path.
 """
 from __future__ import annotations
@@ -123,7 +123,7 @@ def _kkt_error(Z, lam, s, mu_d, params, cfg, H, lb, ub, hu, mu, jac=None,
     eps = jnp.asarray(jnp.finfo(Z.dtype).eps, Z.dtype)
     # pre-cancellation term magnitudes: |H||z| (the rate-cost terms are
     # O(w_rate * thrust) ~ 1e3 and cancel in the sum), plus multiplier sizes
-    habs = jnp.einsum("nij,nj->ni", jnp.abs(H), jnp.abs(Z))
+    habs = jnp.einsum("nij,nj->ni", jnp.abs(H), jnp.abs(Z), precision=_PREC)
     mag = (
         jnp.max(habs)
         + jnp.max(jnp.abs(lam))
@@ -203,7 +203,7 @@ def solve(
         W = H + nlp.ineq_weighted_hessian(params, sigma)
         W = W + scfg.reg * jnp.eye(NZ, dtype=dtype)[None]
 
-        # partition to (xbar, u) with static slices (TPU gathers on minor
+        # partition to (xbar, u) with static slices (gathers on minor
         # dims serialize; concatenated slices stay vectorized)
         Wxx = W[:, 8:17, 8:17]
         Wxp = W[:, 8:17, 4:8]
@@ -288,9 +288,8 @@ def solve(
                 shrink = err_mu <= scfg.mu_gate_factor * mu
             else:
                 shrink = jnp.asarray(True)   # ungated geometric schedule
-            # 1.5 exponent as mu*sqrt(mu): keeps this bitwise identical to
-            # the fused Pallas iteration kernel (ops/ipm_pallas.py), where
-            # general pow lowers through exp/log
+            # 1.5 exponent as mu*sqrt(mu), as in the lane-major solver
+            # (ipm_lanes.py): general pow lowers through exp/log
             mu_pow = (
                 mu * jnp.sqrt(mu) if scfg.mu_superlin == 1.5
                 else mu ** scfg.mu_superlin

@@ -29,6 +29,8 @@ import numpy as np
 from forces_resilient_planner_tpu.config import ModelConfig, WeightConfig
 from forces_resilient_planner_tpu.dynamics.quadrotor import rk2_step
 
+_PREC = jax.lax.Precision.HIGHEST
+
 # ---- index layout --------------------------------------------------------
 IU = slice(0, 4)       # u
 IUP = slice(4, 8)      # u_prev
@@ -159,18 +161,18 @@ def cost_gradient(Z: jnp.ndarray, p: NLPParams, H: jnp.ndarray) -> jnp.ndarray:
     g_lin = jnp.zeros_like(Z)
     g_lin = g_lin.at[:, IPOS].set(-2.0 * p.weights.w_wp[:, None] * p.ref_pos)
     g_lin = g_lin.at[:, IYAW].set(-24.0 * p.weights.w_wp * p.ref_yaw)
-    return jnp.einsum("nij,nj->ni", H, Z) + g_lin
+    return jnp.einsum("nij,nj->ni", H, Z, precision=_PREC) + g_lin
 
 
 def cost_value(Z: jnp.ndarray, p: NLPParams, H: jnp.ndarray) -> jnp.ndarray:
     g_lin = jnp.zeros_like(Z)
     g_lin = g_lin.at[:, IPOS].set(-2.0 * p.weights.w_wp[:, None] * p.ref_pos)
     g_lin = g_lin.at[:, IYAW].set(-24.0 * p.weights.w_wp * p.ref_yaw)
-    quad = 0.5 * jnp.einsum("ni,nij,nj->", Z, H, Z)
+    quad = 0.5 * jnp.einsum("ni,nij,nj->", Z, H, Z, precision=_PREC)
     const = jnp.sum(p.weights.w_wp * jnp.sum(p.ref_pos**2, -1)) + jnp.sum(
         12.0 * p.weights.w_wp * p.ref_yaw**2
     )
-    return quad + jnp.einsum("ni,ni->", g_lin, Z) + const
+    return quad + jnp.einsum("ni,ni->", g_lin, Z, precision=_PREC) + const
 
 
 def dynamics_residuals(Z: jnp.ndarray, p: NLPParams, cfg: ModelConfig):
@@ -203,20 +205,23 @@ def inequality_residuals(Z: jnp.ndarray, p: NLPParams, lb, ub, hu: float):
     g_lb = lb[None, :] - Z
     g_ub = Z - ub[None, :]
     pos = Z[:, IPOS]
-    g_cor = jnp.einsum("nkj,nj->nk", p.corridor_A, pos) - p.corridor_b - hu
+    g_cor = (jnp.einsum("nkj,nj->nk", p.corridor_A, pos, precision=_PREC)
+             - p.corridor_b - hu)
     return jnp.concatenate([g_lb, g_ub, g_cor], axis=-1)
 
 
 def ineq_jac_T_times(p: NLPParams, v: jnp.ndarray) -> jnp.ndarray:
     """J_g^T v per stage without materializing J_g.  v: (N, 64) -> (N, 17)."""
     out = -v[:, 0:17] + v[:, 17:34]
-    cor = jnp.einsum("nkj,nk->nj", p.corridor_A, v[:, 34:64])
+    cor = jnp.einsum("nkj,nk->nj", p.corridor_A, v[:, 34:64],
+                     precision=_PREC)
     return out.at[:, IPOS].add(cor)
 
 
 def ineq_jac_times(p: NLPParams, dz: jnp.ndarray) -> jnp.ndarray:
     """J_g dz per stage.  dz: (N, 17) -> (N, 64)."""
-    cor = jnp.einsum("nkj,nj->nk", p.corridor_A, dz[:, IPOS])
+    cor = jnp.einsum("nkj,nj->nk", p.corridor_A, dz[:, IPOS],
+                     precision=_PREC)
     return jnp.concatenate([-dz, dz, cor], axis=-1)
 
 
@@ -224,8 +229,8 @@ def ineq_weighted_hessian(p: NLPParams, sigma: jnp.ndarray) -> jnp.ndarray:
     """J_g^T diag(sigma) J_g per stage.  sigma: (N, 64) -> (N, 17, 17).
 
     Written as eye-masked broadcasts and an unrolled 3x3 corridor block so
-    every op is an elementwise reduce over the constraint axis (TPU VPU
-    friendly; einsum/diag lower to slow gathers here).
+    every op is an elementwise reduce over the constraint axis (einsum/diag
+    lower to slow gathers here).
     """
     N = sigma.shape[0]
     diag = sigma[:, 0:17] + sigma[:, 17:34]

@@ -85,7 +85,8 @@ def lqr_warm_start_batch(
         xref = xref.at[:, 0:3].set(ref_k[:, 0:3])
         xref = xref.at[:, 8].set(ref_k[:, 3])
         err = jnp.clip(x - xref, -e_sat, e_sat)
-        u = u_hover[None] + err @ Kt
+        u = u_hover[None] + jnp.matmul(
+            err, Kt, precision=jax.lax.Precision.HIGHEST)
         u = jnp.clip(u, u_lb + margin, u_ub - margin)
         xn = rk2_step(x, u, f_ext, mcfg)
         return xn, (u, x)

@@ -11,7 +11,7 @@ where xb = [x(9), uprev(4)] is the augmented state and u the 4-dim input.
 The partially-free initial state encodes FORCES' xinitidx = states-only
 (mpc_generator_normal.m:49): stage-0 u_prev is a free decision variable.
 
-This is the TPU replacement for FORCES' 'symm_indefinite_fast' stagewise
+This is the batched replacement for FORCES' 'symm_indefinite_fast' stagewise
 factorization (mpc_generator_normal.m:66).  Sequential in N (N=20) via
 lax.scan; batched across scenarios with vmap.  Also returns the costates
 nu_i = P_i dxb_i + p_i, which are the equality multipliers the IPM needs.
@@ -63,9 +63,9 @@ class LQRFactor(NamedTuple):
 def _chol4(A):
     """Unrolled Cholesky of a 4x4 SPD matrix.
 
-    TPU note: lax.linalg.cholesky on (batch, 4, 4) lowers to serialized
-    scalar-ish code; unrolling to explicit elementwise formulas keeps the
-    whole Riccati sweep on the VPU with the batch dimension vectorized.
+    lax.linalg.cholesky on (batch, 4, 4) lowers to serialized scalar-ish
+    code; unrolling to explicit elementwise formulas keeps the whole
+    Riccati sweep elementwise with the batch dimension vectorized.
     Returns the lower factor entries as a tuple.
     """
     eps = jnp.asarray(1e-30, A.dtype)
@@ -205,18 +205,18 @@ def solve_lqr(
 
 
 # ---------------------------------------------------------------------------
-# lane-major batched implementation (TPU hot path)
+# lane-major batched implementation (the batched hot path)
 # ---------------------------------------------------------------------------
-# Batched (B, 13, 13) linear algebra is hostile to the TPU vector unit: XLA
-# pads each tiny matrix to (8, 128) tiles, wasting ~10x lanes.  Putting the
-# scenario batch on the minor (lane) dimension instead — arrays shaped
-# (..., i, j, B) — turns every 13x13 operation into 13 fused elementwise
-# FMAs over (i, k, B) tiles, which is exactly what the VPU wants.  The
-# public solve_lqr gets a custom_vmap rule that routes batched calls here.
+# Batched (B, 13, 13) linear algebra wastes vector width: XLA pads each
+# tiny matrix to hardware tiles.  Putting the scenario batch on the minor
+# (lane) dimension instead — arrays shaped (..., i, j, B) — turns every
+# 13x13 operation into 13 fused elementwise FMAs over (i, k, B) tiles.
+# The public solve_lqr gets a custom_vmap rule that routes batched calls
+# here.
 
 def _mm_ll(a, b):
     """(i, j, B) @ (j, k, B) -> (i, k, B): contraction as an unrolled sum of
-    broadcasted elementwise products (fuses into VPU FMAs)."""
+    broadcasted elementwise products (fuses into elementwise FMAs)."""
     return jnp.sum(a[:, :, None, :] * b[None, :, :, :], axis=1)
 
 
@@ -375,13 +375,6 @@ def _solve_lqr_vmap(axis_size, in_batched, Q, R, S, qx, qu, A, B, c, dx0):
         return jnp.broadcast_to(x[..., None], x.shape + (axis_size,))
 
     ll = [to_ll(x, b) for x, b in zip(args, in_batched)]
-    # TPU hot path: the Pallas kernel runs the whole sweep in VMEM per
-    # 128-lane tile (ops/lqr_pallas.py); XLA lane-major scan is the fallback.
-    from forces_resilient_planner_tpu.ops import lqr_pallas
-
-    if lqr_pallas.pallas_lqr_enabled(Q.dtype, axis_size):
-        sol = LQRSolution(*lqr_pallas.solve_lqr_lanes(*ll))
-    else:
-        sol = solve_lqr_batched(*ll)
+    sol = solve_lqr_batched(*ll)
     out = LQRSolution(*[jnp.moveaxis(f, -1, 0) for f in sol])
     return out, LQRSolution(dxb=True, du=True, nu=True, dtheta=True)

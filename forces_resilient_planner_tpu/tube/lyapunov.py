@@ -1,6 +1,6 @@
 """Disturbance-tube propagation: forward reachable ellipsoids.
 
-TPU-native equivalent of NMPCSolver::getDistrEllipsoid + setFORCESParams
+Batched equivalent of NMPCSolver::getDistrEllipsoid + setFORCESParams
 (plan_manage/src/nmpc_solver.cpp:484-611):
 
   - closed-loop Phi = At + Bt K with the fixed feedback gain K
@@ -10,7 +10,7 @@ TPU-native equivalent of NMPCSolver::getDistrEllipsoid + setFORCESParams
     W = Nt - e^{-Phi t} Nt e^{-Phi^T t},  solve  Phi X + X Phi^T = W.
     The reference solves this with complex Schur + Sylvester
     (Eigen::matrix_function_solve_triangular_sylvester, line 595); at 9x9 a
-    batched Kronecker solve (81x81) is the TPU-shaped formulation — one
+    batched Kronecker solve (81x81) is the array-shaped formulation — one
     batched LU instead of an unbatchable Schur iteration.
   - channel combination and stage recursion use the trace-normalized
     Minkowski-sum approximation Q = (1+1/beta) Q1 + (1+beta) Q2 with
@@ -21,7 +21,7 @@ uninitialized (nmpc_solver.cpp:573, UB in C++); we implement the intended
 semantics temp = 0.  The shadowed inner `X` (line 596) is likewise treated
 as the intended per-channel solution.
 
-Structure for TPU: everything per-stage-independent (Phi, expm, Lyapunov
+Structure: everything per-stage-independent (Phi, expm, Lyapunov
 solves, Qd) is computed batched with vmap; only the cheap 9x9 Minkowski
 recursion over the horizon runs in a lax.scan.
 """
@@ -55,10 +55,8 @@ def lyapunov_solve(Phi: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:
     row-major flatten the operator becomes kron(Phi, I) + kron(I, Phi).
 
     General-W reference implementation (kept as the oracle for tests).
-    The production tube path uses lyapunov_gramian below: at batch scale
-    the 81x81 LU's block-inversion custom call must hold its whole
-    (B, N, 81, 81) operand in scoped VMEM, which overflows the 16 MB v5e
-    limit past ~8 vmapped pipelines.
+    The tube path uses the Gramian forms below: a batched 81x81 LU per
+    stage and channel does not scale with the batch.
     """
     n = Phi.shape[-1]
     I = jnp.eye(n, dtype=Phi.dtype)
@@ -104,9 +102,10 @@ def taylor_n_terms(dtype) -> int:
     Measured truncation vs the 12-term f64 reference on tube-regime Phi
     (256 closed-loop linearization points, round 5): 7 terms -> X rel
     6.5e-10 / Mp abs 4.4e-10 (below f32 eps 1.2e-7); 12 terms reaches
-    f64.  The f32 production path (and ops/tube_pallas.py, which mirrors
-    this count) drops ~25 of ~92 9x9 matmuls per stage by not paying for
-    precision f32 cannot represent."""
+    f64.  The f32 path drops ~25 of ~92 9x9 matmuls per stage by not
+    paying for precision f32 cannot represent.  Valid while
+    norm1(Phi t) <= 8 (the 4-doubling budget): tests/test_tube.py pins
+    that bound at the solver's box corners."""
     return 7 if dtype == jnp.float32 else 12
 
 
@@ -126,8 +125,7 @@ def gramian_channels(Phi: jnp.ndarray, t: float, w_bound: jnp.ndarray,
         applied max_doublings times under per-lane masks (shape-static).
 
     Rationale: the 18x18 Van Loan route (lyapunov_gramian) pays a batched
-    LU solve per channel; on TPU the batched small-matrix LU was measured
-    at 340 ms for B=1024 pipelines (tools/tube_phase_probe.py) — 4x the
+    LU solve per channel; batched small-matrix LU is slow next to the
     matmul work itself.  This form has no solve at all.
 
     Returns (X (..., 3, 9, 9) channel-ordered, Mp (..., 9, 9)).
@@ -199,9 +197,9 @@ def channel_Qd_fast(Phi: jnp.ndarray, t: float, w_bound: jnp.ndarray):
 def sqrtm_psd_db(Q: jnp.ndarray, iters: int = 12) -> jnp.ndarray:
     """3x3 PSD square root via scaled Denman-Beavers iteration.
 
-    Closed-form 3x3 inverses (corridor.decomp.inv3) instead of eigh: the
-    batched symmetric eigensolver measured 92 ms at (20480, 3, 3) on-chip
-    (tools/tube_phase_probe.py) — the DB iteration is elementwise math.
+    Closed-form 3x3 inverses (corridor.decomp.inv3) instead of eigh: a
+    batched symmetric eigensolver is slow at (20480, 3, 3), while the DB
+    iteration is elementwise math.
     Determinant-scaled DB converges quadratically; `iters` covers the
     ego-ellipsoid conditioning (r^2/h^2 ~ 40) to f64 accuracy.
     """
@@ -269,7 +267,7 @@ def channel_Qd(
         Nt = t * w_bound[i] ** 2 * jnp.outer(d, d)
         # Gramian form: solves Phi X + X Phi^T = Nt - e^{-Phi t} Nt e^{-Phi^T t}
         # without materializing the 81x81 Kronecker operator (see
-        # lyapunov_gramian; identical X, batch-scalable on TPU)
+        # lyapunov_gramian; identical X, batch-scalable)
         X = lyapunov_gramian(Phi, Nt, t)
         trX = jnp.sqrt(jnp.clip(jnp.trace(X), 1e-30, None))
         return trX, X / trX
@@ -353,20 +351,11 @@ def propagate_tubes_batch(
     tcfg: TubeConfig,
     K: jnp.ndarray | None = None,
 ) -> TubeResult:
-    """Batched propagate_tubes with the Pallas per-stage kernel fast path.
-
-    The per-stage heavy math (Jacobians, channel Gramians, e^{Phi t}, ego
-    ellipsoid) runs in ops/tube_pallas.py over the flattened (B*N) lanes
-    on TPU f32 (XLA fallback otherwise = exactly the propagate_tubes
-    formulas); only the O(N) Minkowski recursion and the DB sqrt stay
-    here.  Identical math — parity tested in tests/test_tube.py and
-    tests/test_ops.py.
-
-    K = None uses the config gain tcfg.K (kernel-eligible — the kernel
-    bakes the static gain); passing an explicit array forces the XLA
-    path (the gate must be trace-free)."""
-    from forces_resilient_planner_tpu.ops import tube_pallas
-
+    """Batched propagate_tubes: the per-stage math (Jacobians, channel
+    Gramians, e^{Phi t}, ego ellipsoid) runs over the flattened (B*N)
+    stage lanes; only the O(N) Minkowski recursion and the DB sqrt run per
+    stage.  Same formulas as propagate_tubes (parity tested in
+    tests/test_tube.py).  K = None uses the config gain tcfg.K."""
     B, N = Z_prev.shape[0], Z_prev.shape[1]
     dtype = Z_prev.dtype
     t = mcfg.dt
@@ -374,22 +363,15 @@ def propagate_tubes_batch(
     x = Z_prev[..., 8:17].reshape(L, NX)
     u = Z_prev[..., 0:4].reshape(L, 4)
 
-    if K is None and tube_pallas.tube_pallas_enabled(dtype, L):
-        Qd, expm_pos, Phi, Q1 = tube_pallas.tube_stage_lanes(
-            x, u, mcfg, tcfg
-        )
-    else:
-        Kj = jnp.asarray(tcfg.K if K is None else K, dtype)
-        w_bound = jnp.full((3,), tcfg.ext_noise_bound, dtype)
-        Phi = jax.vmap(
-            lambda xi, ui: closed_loop_phi(xi, ui, Kj, mcfg)
-        )(x, u)
-        Qd, expm_pos = channel_Qd_fast(Phi, t, w_bound)
-        R = euler_to_rot(x[:, 6:9])
-        ego = jnp.diag(
-            jnp.asarray([tcfg.ego_r**2, tcfg.ego_r**2, tcfg.ego_h**2], dtype)
-        )
-        Q1 = jnp.einsum("nij,jk,nlk->nil", R, ego, R, precision=_PREC)
+    Kj = jnp.asarray(tcfg.K if K is None else K, dtype)
+    w_bound = jnp.full((3,), tcfg.ext_noise_bound, dtype)
+    Phi = jax.vmap(lambda xi, ui: closed_loop_phi(xi, ui, Kj, mcfg))(x, u)
+    Qd, expm_pos = channel_Qd_fast(Phi, t, w_bound)
+    R = euler_to_rot(x[:, 6:9])
+    ego = jnp.diag(
+        jnp.asarray([tcfg.ego_r**2, tcfg.ego_r**2, tcfg.ego_h**2], dtype)
+    )
+    Q1 = jnp.einsum("nij,jk,nlk->nil", R, ego, R, precision=_PREC)
 
     Qd = Qd.reshape(B, N, NX, NX)
     expm_pos = expm_pos.reshape(B, N, NX, NX)

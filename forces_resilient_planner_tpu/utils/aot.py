@@ -3,7 +3,7 @@
 The reference's solver is produced out-of-band: a MATLAB problem spec is
 sent to the FORCES Pro cloud, which returns generated C + a static library
 that ships with the robot (plan_manage/matlab_code/generate_solver.m,
-README.md:61-66).  The TPU-native equivalent of "ship a compiled solver"
+README.md:61-66).  The equivalent here of "ship a compiled solver"
 is a serialized `jax.export` artifact: the jitted batched solve is traced
 and lowered ONCE to a versioned StableHLO blob, which deployments load and
 run without retracing or re-sharding logic (XLA backend compilation still

@@ -3,7 +3,7 @@
 The reference has no persistence (SURVEY.md section 5: all state ephemeral;
 the only warm start is the in-memory previous MPC solution).  Long-running
 Monte-Carlo sweeps here checkpoint batch state so multi-hour jobs survive
-preemption.  Uses orbax when available, with a portable npz fallback.
+preemption.  Format: one npz of the pytree's leaves + a JSON sidecar.
 """
 from __future__ import annotations
 
@@ -15,47 +15,31 @@ import numpy as np
 
 
 def save(path: str | Path, state, metadata: dict | None = None):
-    """Save a pytree of arrays + metadata.  Returns the path."""
+    """Save a pytree of arrays + metadata.  Returns the npz path."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path.with_suffix(".orbax"), jax.tree.map(np.asarray, state),
-                   force=True)
-        meta_path = path.with_suffix(".meta.json")
-        meta_path.write_text(json.dumps({"format": "orbax", **(metadata or {})}))
-        return path.with_suffix(".orbax")
-    except Exception:
-        leaves, treedef = jax.tree.flatten(state)
-        np.savez_compressed(
-            path.with_suffix(".npz"),
-            **{f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves)},
+    leaves, treedef = jax.tree.flatten(state)
+    np.savez_compressed(
+        path.with_suffix(".npz"),
+        **{f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves)},
+    )
+    path.with_suffix(".meta.json").write_text(
+        json.dumps(
+            {
+                "format": "npz",
+                "treedef": str(treedef),
+                "n_leaves": len(leaves),
+                **(metadata or {}),
+            }
         )
-        meta_path = path.with_suffix(".meta.json")
-        meta_path.write_text(
-            json.dumps(
-                {
-                    "format": "npz",
-                    "treedef": str(treedef),
-                    "n_leaves": len(leaves),
-                    **(metadata or {}),
-                }
-            )
-        )
-        return path.with_suffix(".npz")
+    )
+    return path.with_suffix(".npz")
 
 
 def load(path: str | Path, like=None):
     """Load a checkpoint.  `like`: an example pytree giving the structure
-    (required for the npz format)."""
+    (leaves come back as a list without it)."""
     path = Path(path)
-    if path.suffix == ".orbax" or path.with_suffix(".orbax").exists():
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.PyTreeCheckpointer()
-        return ckptr.restore(path if path.suffix == ".orbax" else path.with_suffix(".orbax"))
     npz_path = path if path.suffix == ".npz" else path.with_suffix(".npz")
     data = np.load(npz_path)
     leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
@@ -73,14 +57,9 @@ class SweepCheckpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
 
     def done_chunks(self) -> set[int]:
-        # both persisted formats count (utils.checkpoint.save prefers
-        # orbax and falls back to npz)
         return {
             int(p.stem.split("_")[1])
             for p in self.dir.glob("chunk_*.npz")
-        } | {
-            int(p.stem.split("_")[1].split(".")[0])
-            for p in self.dir.glob("chunk_*.orbax")
         }
 
     def save_chunk(self, idx: int, result):

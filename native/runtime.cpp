@@ -1,7 +1,7 @@
 // Native runtime core for forces_resilient_planner_tpu.
 //
 // The reference implements its entire runtime in C++ (plan_manage/src/*);
-// here the TPU owns the compute path and this library owns the host-side
+// here the accelerator owns the compute path and this library owns the host-side
 // hot loops that sit between the device and the vehicle:
 //   - the 100 Hz command interpolator (cmdTrajCallback, nmpc_solver.cpp:865-987)
 //   - yaw ramp / init-yaw rate limiting (callInitYaw, nmpc_solver.cpp:228-262)

@@ -1,7 +1,7 @@
 """Large-batch f32 robustness: the CI-side guard for the f32 KKT scaling
 floor (solver/ipm.py:119-133).
 
-The TPU bench runs f32 at batch 4096 and reports solved=1.0; the f64
+The benchmark runs f32 at batch 4096 and reports solved=1.0; the f64
 parity suite proves 1e-3 agreement lane-by-lane on small batches.  This
 test closes the gap ON CPU: 512 corridor-active lanes solved at f32 must
 (a) keep a high solved fraction and (b) agree with the f64 solve of the

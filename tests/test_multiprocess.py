@@ -3,7 +3,7 @@
 
 Spawns 2 OS processes, each with 4 virtual CPU devices, joined through
 jax.distributed.initialize — the same initialization path a real N-host
-TPU pod uses (one process per host, mesh outer axis across processes).
+cluster uses (one process per host, mesh outer axis across processes).
 Asserts the replicated sweep statistics from both processes agree with a
 single-process 8-device run of the identical scenario set.
 """

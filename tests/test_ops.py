@@ -1,25 +1,26 @@
-"""Parity tests for the Pallas TPU kernels (interpret mode on CPU).
+"""Tests for the Pallas corridor kernel (ops/corridor_pallas.py) and the
+fixed-structure matrix exponential (ops/expm.py).
 
-Oracle: the XLA lane-major implementation solver/riccati.py::
-solve_lqr_batched, which is itself parity-tested against the dense KKT
-solve (test_solver_parity.py).  The kernel must be bit-for-bit the same
-algorithm, so tolerances here are tight.
+Oracle for the kernel: corridor/decomp.py::decompose_segment, which is
+itself tested against the reference's geometry (test_corridor.py).  The
+kernel is the same algorithm in another expression, so at f64 the
+tolerances are tight.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from forces_resilient_planner_tpu.ops import lqr_pallas
-from forces_resilient_planner_tpu.solver import riccati
-from forces_resilient_planner_tpu.solver.nlp import NXB, NU
+from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
+from forces_resilient_planner_tpu.ops import corridor_pallas
 
 
 def _run_kernel_debug(mode, marker):
     """All interpret-mode kernel executions run in SUBPROCESSES
-    (tools/kernel_parity_debug.py): inline interpret kernels leave XLA:CPU
-    in a state where later unrelated compiles segfault/abort (observed in
-    test_sharding and test_solver_parity when any of these ran inline)."""
+    (tools/kernel_parity_debug.py): inline interpret kernels have left
+    XLA:CPU in a state where later unrelated compiles segfault/abort."""
     import subprocess
     import sys
     from pathlib import Path
@@ -34,53 +35,67 @@ def _run_kernel_debug(mode, marker):
     assert marker in out.stdout, out.stdout[-3000:]
 
 
-def test_pallas_lqr_matches_xla_lane_major():
-    _run_kernel_debug("lqr", "LQR_PARITY_OK")
-
-
-def test_pallas_lqr_solves_kkt_conditions():
-    """Independent check: the kernel's output satisfies the LQR KKT system
-    (dynamics feasibility + stationarity via costates), not just parity."""
-    _run_kernel_debug("lqr_kkt", "LQR_KKT_OK")
-
-
 def test_routing_flag(monkeypatch):
-    assert not lqr_pallas.pallas_lqr_enabled(jnp.float32, 8)  # CPU backend
-    monkeypatch.setenv("FRP_PALLAS_LQR", "1")
-    assert lqr_pallas.pallas_lqr_enabled(jnp.float64, 8)
-    monkeypatch.setenv("FRP_PALLAS_LQR", "0")
-    assert not lqr_pallas.pallas_lqr_enabled(jnp.float32, 4096)
+    """The kernel is chosen from what the code observes: a GPU backend,
+    f32, a batch that fills the card, no obstacle compaction."""
+    ccfg = DEFAULT_CONFIG.corridor
+    enabled = corridor_pallas.corridor_kernel_enabled
+    assert not enabled(jnp.float32, 4096, ccfg)             # CPU backend
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert enabled(jnp.float32, 4096, ccfg)
+    assert enabled(jnp.float32, corridor_pallas.MIN_BATCH, ccfg)
+    assert not enabled(jnp.float32, corridor_pallas.MIN_BATCH - 1, ccfg)
+    assert not enabled(jnp.float64, 4096, ccfg)
+    assert not enabled(
+        jnp.float32, 4096,
+        dataclasses.replace(ccfg, max_active_obstacles=256))
 
 
-def test_fused_assembly_kernels_match_xla_path():
-    """The fused assembly+factor / backsolve kernels must reproduce the
-    XLA path (host-side _assemble_qp_blocks + lane-major factor/solve)
-    exactly for real NLP data."""
-    _run_kernel_debug("fused_assembly", "FUSED_ASSEMBLY_OK")
+def test_corridor_kernel_interpret_matches_decompose_segment():
+    """ops/corridor_pallas.py (interpret mode) vs decompose_segment."""
+    _run_kernel_debug("corridor", "CORRIDOR_PARITY_OK")
 
 
-@pytest.mark.slow
-def test_fused_iteration_kernel_matches_xla_solver():
-    """ops/ipm_pallas.py::ipm_iteration_fused (whole IPM iteration in one
-    kernel, interpret mode) must reproduce the XLA lane-major solver on a
-    full solve: identical iteration counts and exit codes, controls to
-    reassociation-level tolerance.
+def test_corridor_kernel_padding_and_masked_clouds():
+    """Non-power-of-two clouds, an odd batch, an all-masked cloud and
+    zero padding rows, still vs decompose_segment."""
+    _run_kernel_debug("corridor_padding", "CORRIDOR_PADDING_OK")
 
-    Runs in a SUBPROCESS (tools/fused_iter_debug.py): executing the big
-    interpret-mode kernel in the pytest process leaves XLA:CPU in a state
-    where a later unrelated while_loop compile segfaults (observed
-    reproducibly in test_solver_parity when this test ran inline)."""
-    import subprocess
-    import sys
-    from pathlib import Path
 
-    root = Path(__file__).resolve().parents[1]
-    out = subprocess.run(
-        [sys.executable, str(root / "tools" / "fused_iter_debug.py"), "25"],
-        capture_output=True, text=True, timeout=540, cwd=str(root),
+def test_corridor_kernel_lowers_to_triton_for_cuda():
+    """The kernel lowers through the Pallas Triton route for a CUDA
+    target at production widths (B=4096, 2,048-point clouds, 20 stages):
+    what this host can check of the card's compile without a card."""
+    B, N, M = 4096, DEFAULT_CONFIG.model.N, DEFAULT_CONFIG.corridor.max_obstacles
+    f32 = jnp.float32
+    args = (jax.ShapeDtypeStruct((B, N, 3), f32),) * 2 + (
+        jax.ShapeDtypeStruct((B, M, 3), f32),
+        jax.ShapeDtypeStruct((B, M), jnp.bool_),
     )
-    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
-    assert "FUSED_PARITY_OK" in out.stdout, out.stdout[-3000:]
+    fn = jax.jit(lambda p1, p2, o, m: corridor_pallas.decompose_stages(
+        p1, p2, o, m, DEFAULT_CONFIG.corridor, DEFAULT_CONFIG.model.nh))
+    exp = jax.export.export(
+        fn, platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")],
+    )(*args)
+    text = exp.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    assert "num_warps = %d" % corridor_pallas.NUM_WARPS in text
+    assert exp.out_avals[0].shape == (B, N, DEFAULT_CONFIG.model.nh, 3)
+
+
+@pytest.mark.gpu
+def test_corridor_kernel_on_card_matches_xla():
+    """The kernel compiled for the card vs the XLA decomposition, both in
+    f64 on the card at the real cloud width (chip_smoke's corridor
+    phase)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA card (JAX backend 'gpu')")
+    import chip_smoke
+
+    rec = chip_smoke.phase_corridor(B=16)
+    assert rec["ok"], rec
 
 
 def test_expm_fixed_matches_jax_scipy():
@@ -122,13 +137,3 @@ def test_expm_fixed_tube_phi_regime():
         want = jsl.expm(Phi)
         got = expm_fixed(Phi)
         assert float(jnp.max(jnp.abs(got - want))) < 1e-11
-
-
-def test_tube_kernel_interpret_matches_xla():
-    """ops/tube_pallas.py (interpret mode) vs the XLA tube-stage math."""
-    _run_kernel_debug("tube", "TUBE_PARITY_OK")
-
-
-def test_corridor_kernel_interpret_matches_decompose_segment():
-    """ops/corridor_pallas.py (interpret) vs decompose_segment."""
-    _run_kernel_debug("corridor", "CORRIDOR_PARITY_OK")

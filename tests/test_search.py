@@ -200,7 +200,7 @@ def test_init_expansion_uses_start_acc():
 def test_vmapped_search_matches_single():
     """Batched front-end: jax.vmap(kd.search) over scenarios must produce
     exactly the B=1 results lane by lane (fixed shapes, no data-dependent
-    control flow — the TPU reformulation of HOT LOOP 1,
+    control flow — the batched reformulation of HOT LOOP 1,
     kinodynamic_astar.cpp:17-286, batches for free)."""
     grid = og.make_grid(MAP, jnp.float64)
     # a small obstacle block so collision handling is exercised

@@ -50,3 +50,14 @@ def test_monte_carlo_sweep_runs():
     )
     assert int(stats.n) == 16
     assert int(stats.n_solved) >= 14  # nearly all trivial scenarios solve
+
+
+def test_default_mesh_is_one_batch_axis():
+    """One host's cards reach each other all to all: the default mesh is
+    one 'batch' axis over every device; an explicit 2-D shape keeps the
+    (host, chip) axes of the multi-process path."""
+    mesh = pm.make_mesh()
+    assert mesh.axis_names == ("batch",)
+    assert mesh.devices.shape == (len(jax.devices()),)
+    assert pm.batch_sharding(mesh).spec == pm.P(("batch",))
+    assert pm.make_mesh(shape=(2, 4)).axis_names == ("host", "chip")

@@ -180,14 +180,11 @@ def test_sqrtm_db_matches_eigh():
 
 
 def test_f32_taylor_length_matches_kernel_and_is_f32_exact():
-    """The f32 Gramian Taylor length (taylor_n_terms) must (a) equal the
-    tube kernel's N_TERMS — the 1e-6 kernel parity check relies on both
-    sides truncating identically — and (b) stay f32-exact vs the 12-term
-    f64 reference at the scaled norm <= 0.5 the doubling scheme enforces."""
-    from forces_resilient_planner_tpu.ops import tube_pallas
-
+    """The f32 Gramian Taylor length (taylor_n_terms) is the 7-term count
+    the f32 tube path runs, and it stays f32-exact vs the 12-term f64
+    reference at the scaled norm <= 0.5 the doubling scheme enforces."""
     n32 = tl.taylor_n_terms(jnp.float32)
-    assert n32 == tube_pallas.N_TERMS
+    assert n32 == 7
     assert tl.taylor_n_terms(jnp.float64) == 12
 
     rng = np.random.default_rng(21)
@@ -201,3 +198,32 @@ def test_f32_taylor_length_matches_kernel_and_is_f32_exact():
     rel = float(jnp.max(jnp.abs(Xn - X12)) / jnp.max(jnp.abs(X12)))
     assert rel < 1e-8                      # below f32 eps 1.2e-7
     assert float(jnp.max(jnp.abs(Mn - M12))) < 1e-8
+
+
+def test_f32_taylor_validity_bound_at_adversarial_states():
+    """The 7-term f32 series is exact only while norm1(Phi * dt) <= 8, the
+    budget of its 4 doublings.  Pin that bound at the solver's box
+    corners: every state and input at +-its bound (max tilt, velocity,
+    thrust, yaw), which is where the closed-loop Jacobian norm peaks.
+    The f32 tube path has no runtime guard, so this margin must hold."""
+    from forces_resilient_planner_tpu.solver import nlp
+
+    lb, ub = (np.asarray(v) for v in nlp.variable_bounds(C.model))
+    rng = np.random.default_rng(5)
+    n = 256
+    pick = rng.integers(0, 2, (n, 17)).astype(bool)
+    z = np.where(pick, ub, lb)
+    x = jnp.asarray(z[:, 8:17])
+    u = jnp.asarray(z[:, 0:4])
+    K = jnp.asarray(C.tube.K, jnp.float64)
+    Phi = jax.vmap(lambda a, b: tl.closed_loop_phi(a, b, K, C.model))(x, u)
+    norm1 = jnp.max(jnp.sum(jnp.abs(Phi * C.model.dt), axis=-2), axis=-1)
+    assert float(jnp.max(norm1)) <= 8.0 / 2.0, float(jnp.max(norm1))
+
+    w = jnp.full((3,), C.tube.ext_noise_bound)
+    X12, M12 = tl.gramian_channels(Phi, C.model.dt, w, n_terms=12)
+    X7, M7 = tl.gramian_channels(
+        Phi, C.model.dt, w, n_terms=tl.taylor_n_terms(jnp.float32))
+    rel = float(jnp.max(jnp.abs(X7 - X12)) / jnp.max(jnp.abs(X12)))
+    assert rel < 1e-7, rel
+    assert float(jnp.max(jnp.abs(M7 - M12) / (1.0 + jnp.abs(M12)))) < 1e-7

@@ -1,7 +1,7 @@
-"""Fleet closed-loop on-chip: B scenarios through search + batched NMPC.
+"""Fleet closed loop on the card: B scenarios through search + batched NMPC.
 
-Measures the config-3-at-scale Monte-Carlo shape (engine/fleet.py) on the
-real TPU: batched kinodynamic searches (the HOT LOOP 1 reformulation,
+Measures the config-3-at-scale Monte-Carlo shape (engine/fleet.py):
+batched kinodynamic searches (the HOT LOOP 1 reformulation,
 kinodynamic_astar.cpp:17-286) and full batched pipeline steps per wall
 second, plus flight outcomes.
 
@@ -66,9 +66,27 @@ def fleet_scene(cfg, dtype):
     return grid, obs, mask
 
 
+def fleet_lanes(B, seed=5):
+    """(starts (B, 9), goals (B, 3), true forces (B, 3)) through the gap.
+
+    Goals thread the gap with >= 0.6 m lateral clearance: the tube + ego
+    demand ~0.7 m; tighter lanes honestly fail by tube-tightened
+    infeasibility (the scenario knob, not a solver property)."""
+    rng = np.random.default_rng(seed)
+    starts = np.zeros((B, 9))
+    starts[:, 0] = -0.5
+    starts[:, 1] = rng.uniform(0.8, 1.6, B)
+    starts[:, 2] = 1.2
+    goals = np.stack(
+        [np.full(B, 3.2), rng.uniform(0.9, 1.5, B), np.full(B, 1.2)], -1
+    )
+    return starts, goals, rng.uniform(-0.5, 0.5, (B, 3))
+
+
 def main(B, duration):
     import bench
 
+    bench.require_gpu()
     bench.setup_cache()
     import jax.numpy as jnp
 
@@ -77,19 +95,7 @@ def main(B, duration):
     cfg = fleet_cfg()
     dtype = jnp.float32
     grid, obs, mask = fleet_scene(cfg, dtype)
-
-    rng = np.random.default_rng(5)
-    starts = np.zeros((B, 9))
-    starts[:, 0] = -0.5
-    # goals threading the gap with >= 0.6 m lateral clearance: the tube +
-    # ego demand ~0.7 m; tighter lanes honestly fail by tube-tightened
-    # infeasibility (the scenario knob, not a solver property)
-    starts[:, 1] = rng.uniform(0.8, 1.6, B)
-    starts[:, 2] = 1.2
-    goals = np.stack(
-        [np.full(B, 3.2), rng.uniform(0.9, 1.5, B), np.full(B, 1.2)], -1
-    )
-    f_true = rng.uniform(-0.5, 0.5, (B, 3))
+    starts, goals, f_true = fleet_lanes(B)
 
     # warm-up run (compiles searches + pipeline at this B)
     _ = fleet.run_fleet(
@@ -157,11 +163,6 @@ def main(B, duration):
         },
     )
     print(json.dumps(out), flush=True)
-    np.savez(
-        "/tmp/fleet_lanes.npz", outcome=res.outcome, starts=starts,
-        goals=goals, f_true=f_true, final=res.final_states,
-        infeas_ticks=res.infeas_ticks, time_to_goal=res.time_to_goal,
-    )
     # per-outcome detail for failed lanes: where did they end up?
     import collections
 

@@ -1,5 +1,5 @@
-"""Print the monotone-schedule iteration histogram using the bench config
-(tier 16/0.25 — program already in the persistent cache, loads in seconds)."""
+"""Print the monotone-schedule iteration histogram of bench.py's workload
+(tier 16/0.25)."""
 import dataclasses
 import time
 from pathlib import Path
@@ -13,12 +13,9 @@ if sys_path_root not in _sys.path:
 
 
 def main():
-    import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(Path(__file__).resolve().parents[1] / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    import bench
+
+    bench.setup_cache()
 
     from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
     from forces_resilient_planner_tpu.engine import batch as bm

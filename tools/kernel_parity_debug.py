@@ -1,15 +1,15 @@
-"""Interpret-mode parity checks for the tube / corridor Pallas kernels.
+"""Interpret-mode parity checks for the corridor Pallas kernel.
 
 Run AS A SUBPROCESS from tests (tests/test_ops.py): executing interpret-
-mode Mosaic kernels inline in a long-lived process leaves XLA:CPU in a
-state where later unrelated compiles can abort (the same failure mode
-documented for tools/fused_iter_debug.py).
+mode kernels inline in a long-lived process has left XLA:CPU in a state
+where later unrelated compiles abort.
 
-Usage:  python tools/kernel_parity_debug.py tube|corridor
-Prints TUBE_PARITY_OK / CORRIDOR_PARITY_OK on success.
+Usage:  python tools/kernel_parity_debug.py corridor|corridor_padding
+Prints CORRIDOR_PARITY_OK / CORRIDOR_PADDING_OK on success.
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -22,276 +22,83 @@ if str(ROOT) not in sys.path:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)  # corridor parity runs at f64
+jax.config.update("jax_enable_x64", True)  # parity runs at f64
 import jax.numpy as jnp  # noqa: E402
 
 
-def check_tube():
-    from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
-    from forces_resilient_planner_tpu.dynamics.quadrotor import euler_to_rot
-    from forces_resilient_planner_tpu.ops import tube_pallas
-    from forces_resilient_planner_tpu.tube import lyapunov as tl
-
-    C = DEFAULT_CONFIG
-    mcfg, tcfg = C.model, C.tube
-    rng = np.random.default_rng(9)
-    L = tube_pallas.LANES
-    dt32 = jnp.float32
-    x = jnp.asarray(rng.normal(0, 0.4, (L, 9)), dt32)
-    u = jnp.asarray(
-        np.array([0, 0, 0, 7.3]) + rng.normal(0, 0.5, (L, 4)), dt32
-    )
-
-    Qd_k, Mp_k, Phi_k, Q1_k = tube_pallas.tube_stage_lanes(
-        x, u, mcfg, tcfg, interpret=True
-    )
-
-    K = jnp.asarray(tcfg.K, dt32)
-    w = jnp.full((3,), tcfg.ext_noise_bound, dt32)
-    Phi_x = jax.vmap(lambda a, b: tl.closed_loop_phi(a, b, K, mcfg))(x, u)
-    Qd_x, Mp_x = tl.channel_Qd_fast(Phi_x, mcfg.dt, w)
-    R = euler_to_rot(x[:, 6:9])
-    ego = jnp.diag(jnp.asarray(
-        [tcfg.ego_r**2, tcfg.ego_r**2, tcfg.ego_h**2], dt32))
-    Q1_x = jnp.einsum("nij,jk,nlk->nil", R, ego, R)
-
-    for name, got, want, tol in (
-        ("Phi", Phi_k, Phi_x, 2e-5),
-        ("Mp", Mp_k, Mp_x, 2e-6),
-        ("Qd", Qd_k, Qd_x, 1e-6),
-        ("Q1", Q1_k, Q1_x, 1e-6),
-    ):
-        err = float(jnp.max(jnp.abs(got - want)))
-        assert err < tol, (name, err)
-        print(f"[tube] {name}: max diff {err:.2e}")
-    print("TUBE_PARITY_OK")
-
-
-def check_corridor():
-    import dataclasses
-
-    from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
+def _check(ccfg, nh, B, N, M, seed, masked_lanes=()):
+    """Kernel (interpret mode) vs decompose_segment, stage by stage."""
     from forces_resilient_planner_tpu.corridor.decomp import decompose_segment
     from forces_resilient_planner_tpu.ops import corridor_pallas
 
-    rng = np.random.default_rng(31)
+    rng = np.random.default_rng(seed)
+    p1 = rng.uniform([-1, -1, 0.8], [1, 1, 1.6], (B, N, 3))
+    yaw = rng.uniform(-np.pi, np.pi, (B, N))
+    p2 = p1 + 0.1 * np.stack(
+        [np.cos(yaw), np.sin(yaw), np.zeros_like(yaw)], -1
+    )
+    obs = rng.uniform([-3, -3, -0.5], [3, 3, 3], (B, M, 3))
+    mask = rng.uniform(size=(B, M)) < 0.9
+    for lane in masked_lanes:
+        mask[lane] = False
+
+    A_k, b_k = corridor_pallas.decompose_stages(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(obs),
+        jnp.asarray(mask), ccfg, nh, interpret=True,
+    )
+    assert A_k.shape == (B, N, nh, 3) and b_k.shape == (B, N, nh)
+    for bi in range(B):
+        for ni in range(N):
+            ref = decompose_segment(
+                jnp.asarray(p1[bi, ni]), jnp.asarray(p2[bi, ni]),
+                jnp.asarray(obs[bi]), jnp.asarray(mask[bi]), ccfg, nh,
+            )
+            np.testing.assert_allclose(
+                np.asarray(A_k[bi, ni]), np.asarray(ref.A), atol=1e-9,
+                err_msg=f"A b={bi} n={ni} caps={ccfg.max_obs_planes}",
+            )
+            np.testing.assert_allclose(
+                np.asarray(b_k[bi, ni]), np.asarray(ref.b), atol=1e-9,
+                err_msg=f"b b={bi} n={ni}",
+            )
+    return np.asarray(A_k), np.asarray(b_k)
+
+
+def check_corridor():
+    from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
+
     for ccfg, nh in (
         (dataclasses.replace(
-            DEFAULT_CONFIG.corridor, shrink_iters=6, max_obs_planes=24,
-            max_active_obstacles=0), 30),
+            DEFAULT_CONFIG.corridor, shrink_iters=6, max_obs_planes=24), 30),
         (dataclasses.replace(
-            DEFAULT_CONFIG.corridor, shrink_iters=4, max_obs_planes=12,
-            max_active_obstacles=0), 30),
+            DEFAULT_CONFIG.corridor, shrink_iters=4, max_obs_planes=12), 30),
     ):
-        B, N, M = 2, 3, 96
-        p1 = rng.uniform([-1, -1, 0.8], [1, 1, 1.6], (B, N, 3))
-        yaw = rng.uniform(-np.pi, np.pi, (B, N))
-        p2 = p1 + 0.1 * np.stack(
-            [np.cos(yaw), np.sin(yaw), np.zeros_like(yaw)], -1
-        )
-        obs = rng.uniform([-3, -3, -0.5], [3, 3, 3], (B, M, 3))
-        mask = rng.uniform(size=(B, M)) < 0.9
-
-        A_k, b_k = corridor_pallas.decompose_stages_lanes(
-            jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(obs),
-            jnp.asarray(mask), ccfg, nh, interpret=True,
-        )
-        for bi in range(B):
-            for ni in range(N):
-                ref = decompose_segment(
-                    jnp.asarray(p1[bi, ni]), jnp.asarray(p2[bi, ni]),
-                    jnp.asarray(obs[bi]), jnp.asarray(mask[bi]), ccfg, nh,
-                )
-                np.testing.assert_allclose(
-                    np.asarray(A_k[bi, ni]), np.asarray(ref.A), atol=1e-9,
-                    err_msg=f"A b={bi} n={ni} caps={ccfg.max_obs_planes}",
-                )
-                np.testing.assert_allclose(
-                    np.asarray(b_k[bi, ni]), np.asarray(ref.b), atol=1e-9,
-                    err_msg=f"b b={bi} n={ni}",
-                )
+        _check(ccfg, nh, B=2, N=3, M=128, seed=31)
         print(f"[corridor] caps={ccfg.max_obs_planes}: OK")
     print("CORRIDOR_PARITY_OK")
 
 
-def _random_lqr(rng, N, Bn, dtype):
-    """Well-conditioned random LQR data in lane-major layout (mirror of the
-    former inline fixture in tests/test_ops.py)."""
-    from forces_resilient_planner_tpu.solver.nlp import NXB, NU
+def check_corridor_padding():
+    """Cloud sizes that are not a power of two (padded with masked
+    points), an odd batch, an all-masked cloud (only the 6 bbox walls
+    survive) and zero padding rows beyond the caps (nh > planes + 6)."""
+    from forces_resilient_planner_tpu.config import DEFAULT_CONFIG
 
-    def spd(n, scale):
-        M = rng.standard_normal((N, n, n, Bn))
-        A = (np.einsum("nikb,njkb->nijb", M, M) / n
-             + scale * np.eye(n)[None, :, :, None])
-        return A
-
-    Q = spd(NXB, 1.0)
-    R = spd(NU, 1.0)
-    S = 0.1 * rng.standard_normal((N, NU, NXB, Bn))
-    qx = rng.standard_normal((N, NXB, Bn))
-    qu = rng.standard_normal((N, NU, Bn))
-    A = np.eye(NXB)[None, :, :, None] + 0.05 * rng.standard_normal(
-        (N - 1, NXB, NXB, Bn)
-    )
-    B = 0.1 * rng.standard_normal((N - 1, NXB, NU, Bn))
-    c = 0.01 * rng.standard_normal((N - 1, NXB, Bn))
-    dx0 = rng.standard_normal((9, Bn))
-    return tuple(jnp.asarray(x, dtype) for x in (Q, R, S, qx, qu, A, B, c, dx0))
-
-
-def check_lqr():
-    from forces_resilient_planner_tpu.ops import lqr_pallas
-    from forces_resilient_planner_tpu.solver import riccati
-
-    for Bn in (128, 96):  # aligned + padded tile
-        rng = np.random.default_rng(0)
-        args = _random_lqr(rng, N=20, Bn=Bn, dtype=jnp.float64)
-        ref = riccati.solve_lqr_batched(*args)
-        out = lqr_pallas.solve_lqr_lanes(*args, interpret=True)
-        for got, want, name in zip(out, ref, ["dxb", "du", "nu", "dtheta"]):
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(want), rtol=1e-9, atol=1e-9,
-                err_msg=f"{name} Bn={Bn}",
-            )
-        print(f"[lqr] Bn={Bn}: OK")
-    print("LQR_PARITY_OK")
-
-
-def check_lqr_kkt():
-    from forces_resilient_planner_tpu.ops import lqr_pallas
-
-    rng = np.random.default_rng(1)
-    Bn = 128
-    args = _random_lqr(rng, N=8, Bn=Bn, dtype=jnp.float64)
-    Q, R, S, qx, qu, A, B, c, dx0 = args
-    dxb, du, nu, dtheta = lqr_pallas.solve_lqr_lanes(*args, interpret=True)
-    dxb = np.moveaxis(np.asarray(dxb), -1, 0)   # (B, N, 13)
-    du = np.moveaxis(np.asarray(du), -1, 0)
-    nu = np.moveaxis(np.asarray(nu), -1, 0)
-    Qb = np.moveaxis(np.asarray(Q), -1, 0)
-    Rb = np.moveaxis(np.asarray(R), -1, 0)
-    Sb = np.moveaxis(np.asarray(S), -1, 0)
-    qxb = np.moveaxis(np.asarray(qx), -1, 0)
-    qub = np.moveaxis(np.asarray(qu), -1, 0)
-    Ab = np.moveaxis(np.asarray(A), -1, 0)
-    Bb = np.moveaxis(np.asarray(B), -1, 0)
-    cb = np.moveaxis(np.asarray(c), -1, 0)
-    dx0b = np.moveaxis(np.asarray(dx0), -1, 0)
-
-    np.testing.assert_allclose(dxb[:, 0, :9], dx0b, atol=1e-12)
-    pred = (
-        np.einsum("bnij,bnj->bni", Ab, dxb[:, :-1])
-        + np.einsum("bnij,bnj->bni", Bb, du[:, :-1])
-        + cb
-    )
-    np.testing.assert_allclose(pred, dxb[:, 1:], atol=1e-8)
-    r_u = (
-        np.einsum("bnij,bnj->bni", Rb[:, :-1], du[:, :-1])
-        + np.einsum("bnij,bnj->bni", Sb[:, :-1], dxb[:, :-1])
-        + qub[:, :-1]
-        + np.einsum("bnji,bnj->bni", Bb, nu[:, 1:])
-    )
-    np.testing.assert_allclose(r_u, 0.0, atol=1e-8)
-    r_uT = (
-        np.einsum("bij,bj->bi", Rb[:, -1], du[:, -1])
-        + np.einsum("bij,bj->bi", Sb[:, -1], dxb[:, -1])
-        + qub[:, -1]
-    )
-    np.testing.assert_allclose(r_uT, 0.0, atol=1e-8)
-    np.testing.assert_allclose(nu[:, 0, 9:], 0.0, atol=1e-8)
-    print("LQR_KKT_OK")
-
-
-def check_fused_assembly():
-    """Fused assembly+factor / backsolve kernels vs the XLA path (the
-    former inline test_fused_assembly_kernels_match_xla_path)."""
-    from forces_resilient_planner_tpu.config import DEFAULT_CONFIG as C
-    from forces_resilient_planner_tpu.engine import batch as bm
-    from forces_resilient_planner_tpu.ops import lqr_pallas
-    from forces_resilient_planner_tpu.solver import ipm_lanes, nlp as nlpm
-    from forces_resilient_planner_tpu.solver import riccati
-    from forces_resilient_planner_tpu.dynamics.quadrotor import (
-        rk2_jacobians_analytic,
-        rk2_step,
-    )
-
-    rng = np.random.default_rng(7)
-    goals = rng.uniform([-2, -2, 1.0], [2, 2, 1.5], (4, 3))
-    forces = rng.uniform(-1.0, 1.0, (2, 3))
-    halves = np.array([[4.0, 4.0, 1.5]])
-    sc = bm.make_scenarios(C, goals, forces, halves, dtype=jnp.float64)
-    lp = ipm_lanes.lanes_params(sc.params)
-    Z = jnp.moveaxis(sc.Z0, 0, -1)
-    N = Z.shape[0]
-    Bn = Z.shape[-1]
-    dtype = Z.dtype
-    w = lp.weights
-    rmax2 = C.model.max_rate ** 2
-    lb, ub = nlpm.variable_bounds(C.model, dtype)
-    g0 = ipm_lanes._ineq_residuals(
-        Z, lp.corridor_A, lp.corridor_b, lb, ub, 1e-5
-    )
-    s_ = np.maximum(-np.asarray(g0), 1e-2)
-    sigma = jnp.asarray(np.clip(1.0 / s_, 1e-6, 1e6) / s_)
-
-    x_bl = jnp.moveaxis(Z[:-1, 8:17], 1, -1)
-    u_bl = jnp.moveaxis(Z[:-1, 0:4], 1, -1)
-    f_bl = lp.f_ext.T
-    Ax, Bx = rk2_jacobians_analytic(x_bl, u_bl, f_bl[None], C.model)
-    Ax = jnp.moveaxis(Ax, 1, -1)
-    Bx = jnp.moveaxis(Bx, 1, -1)
-    xn = rk2_step(x_bl, u_bl, f_bl[None], C.model)
-    F = jnp.concatenate([jnp.moveaxis(xn, -1, 1), Z[:-1, 0:4]], axis=1)
-    c = F - jnp.concatenate([Z[1:, 8:17], Z[1:, 4:8]], axis=1)
-    qx = jnp.asarray(rng.standard_normal((N, 13, Bn)), dtype)
-    qu = jnp.asarray(rng.standard_normal((N, 4, Bn)), dtype)
-    dx0 = jnp.asarray(0.01 * rng.standard_normal((9, Bn)), dtype)
-
-    Wp, Rp, Sp = ipm_lanes._assemble_qp_blocks(
-        w, lp.corridor_A, sigma, jnp.asarray(C.solver.reg, dtype),
-        rmax2, dtype,
-    )
-    NXB, NU = 13, 4
-    Abar = jnp.zeros((N - 1, NXB, NXB, Bn), dtype).at[:, :9, :9].set(Ax)
-    Bbar = (
-        jnp.zeros((N - 1, NXB, NU, Bn), dtype)
-        .at[:, :9, :].set(Bx)
-        .at[:, 9:, :].set(
-            jnp.broadcast_to(
-                jnp.eye(NU, dtype=dtype)[None, :, :, None],
-                (N - 1, NU, NU, Bn),
-            )
-        )
-    )
-    ref = riccati.solve_lqr_batched(Wp, Rp, Sp, qx, qu, Abar, Bbar, c, dx0)
-
-    fac = lqr_pallas.lqr_factor_fused_lanes(
-        w.w_wp, w.w_input, w.w_rate, w.w_vel, w.w_uprev0,
-        sigma, lp.corridor_A, Ax, Bx, C.solver.reg, rmax2,
-        interpret=True,
-    )
-    out = lqr_pallas.lqr_backsolve_fused_lanes(
-        fac, Ax, Bx, c, qx, qu, dx0, interpret=True
-    )
-    for got, want, name in zip(out, ref, ["dxb", "du", "nu", "dtheta"]):
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-9, atol=1e-9,
-            err_msg=name,
-        )
-    print("FUSED_ASSEMBLY_OK")
+    ccfg = dataclasses.replace(
+        DEFAULT_CONFIG.corridor, shrink_iters=4, max_obs_planes=8)
+    A, b = _check(ccfg, 16, B=3, N=2, M=97, seed=5, masked_lanes=(1,))
+    walls = np.linalg.norm(A[1], axis=-1) > 0
+    assert walls[:, 8:14].all() and not walls[:, :8].any(), walls
+    assert not A[:, :, 14:].any() and not b[:, :, 14:].any()
+    print("CORRIDOR_PADDING_OK")
 
 
 if __name__ == "__main__":
-    mode = sys.argv[1] if len(sys.argv) > 1 else "tube"
-    if mode == "tube":
-        check_tube()
-    elif mode == "corridor":
-        check_corridor()
-    elif mode == "lqr":
-        check_lqr()
-    elif mode == "lqr_kkt":
-        check_lqr_kkt()
-    elif mode == "fused_assembly":
-        check_fused_assembly()
-    else:
+    modes = {
+        "corridor": check_corridor,
+        "corridor_padding": check_corridor_padding,
+    }
+    mode = sys.argv[1] if len(sys.argv) > 1 else "corridor"
+    if mode not in modes:
         raise SystemExit(f"unknown mode {mode}")
+    modes[mode]()

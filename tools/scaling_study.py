@@ -7,7 +7,7 @@ CPU devices share the same physical cores, so wall-clock here measures
 the sharding machinery (shard_map, tier compaction per shard, collective
 stats), not chip speedup; the table documents that the batch axis scales
 mechanically and what per-device dispatch overhead looks like.  On real
-hardware the same code spans (host, chip) meshes over DCN/ICI.
+hardware the same code spans device meshes over NVLink or the network.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
          python tools/scaling_study.py
@@ -128,7 +128,7 @@ def main():
         "tier compaction, collective sweep stats), not chip speedup — "
         "the expectation on shared cores is roughly FLAT wall-clock with "
         "zero parallel efficiency loss from the sharding layer itself. "
-        "On TPU hardware the same mesh axes span ICI/DCN.",
+        "On real cards the same mesh axis spans NVLink or the network.",
         "",
         "| devices | processes | global B | wall/sweep [s] | sweeps' "
         "solves/s | solved |",
